@@ -1,11 +1,11 @@
-"""speechrecognition_tpu — a TPU-native classical-ASR framework.
+"""speechrecognition_tpu — a classical-ASR framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 kkromberg/SpeechRecognition reference (RWTH ASR lab): MFCC front-end,
 GMM-HMM acoustic models trained with EM, Viterbi forced alignment,
 time-synchronous word-loop beam decoding, WER scoring, a hybrid MLP
 scorer, and n-gram language modelling — all expressed as dense, batched,
-mask-padded tensor programs that map onto the MXU/VPU instead of the
+mask-padded tensor programs for an accelerator instead of the
 reference's per-frame C++ pointer chasing.
 
 Precision policy:

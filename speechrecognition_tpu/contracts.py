@@ -3,7 +3,7 @@
 Sprint instruments hot code with `require` / `verify` / `ensure` /
 `defect` (Core/Assertions.hh) as its de-facto sanitizer (SURVEY §4.2);
 sietill uses `assert` + ad-hoc `test(cond, msg)` aborts (Mixtures.cpp:
-97-102). The TPU-native counterparts:
+97-102). The counterparts here:
 
   require(cond, msg)  — precondition on caller-supplied data; ALWAYS
                         checked (bad input must not reach a jitted

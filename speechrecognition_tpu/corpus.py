@@ -3,7 +3,7 @@
 The reference loads every utterance's ``.mm2`` file into one flat float
 array with per-segment offsets (src/sietill/Corpus.cpp:89-111). We keep that
 flat layout (it is exactly what segment-sum EM accumulation wants) and add
-length-bucketed padded batch views for the TPU decoder/aligner.
+length-bucketed padded batch views for the device decoder/aligner.
 """
 
 from __future__ import annotations

@@ -10,12 +10,13 @@ windows (::320-336) and the two-step float32 rounding of CMVN (::390-392).
 Two implementations are provided:
   * numpy float64 reference path (bit-parity with the C++ within f32 rounding)
   * a batched JAX path where the whole frame loop is a single
-    (frames × fft) rFFT plus two matmuls (mel, DCT) that run on the MXU.
+    (frames × fft) matmul-DFT plus two matmuls (mel, DCT).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Tuple
 
 import numpy as np
@@ -144,7 +145,7 @@ def extract_features_batch_jax(samples: jnp.ndarray, num_samples: jnp.ndarray,
 
     The DFT is expressed as two [window, bins] matmuls (no FFT butterflies —
     the zero-padded 200-sample window makes the dense DFT cheaper *and*
-    avoids the TPU FFT's reduced-precision twiddles). Mel and DCT are
+    keeps the twiddles at full precision). Mel and DCT are
     matmuls too, so the whole front-end is three GEMMs + elementwise ops.
 
     dtype float64 (default) reproduces the reference's double pipeline to
@@ -175,11 +176,14 @@ def extract_features_batch_jax(samples: jnp.ndarray, num_samples: jnp.ndarray,
     k = np.arange(n_bins, dtype=np.float64)[None, :]
     ang = 2.0 * np.pi * t * k / cfg.dft_length
     scale = 1.0 / np.sqrt(cfg.dft_length)
-    re = frames @ jnp.asarray(np.cos(ang) * scale, dtype)
-    im = frames @ jnp.asarray(np.sin(ang) * scale, dtype)
+    # HIGHEST on every GEMM: the features must match the C++ front-end's
+    # float arithmetic, which a TF32 product (10-bit mantissa) would not
+    dot = partial(jnp.dot, precision=jax.lax.Precision.HIGHEST)
+    re = dot(frames, jnp.asarray(np.cos(ang) * scale, dtype))
+    im = dot(frames, jnp.asarray(np.sin(ang) * scale, dtype))
     spec = jnp.sqrt(re * re + im * im)
-    fb = 1e-10 + spec @ jnp.asarray(mel_filterbank_matrix(cfg), dtype)
-    cepstra = jnp.log(fb) @ jnp.asarray(dct_matrix(cfg), dtype)
+    fb = 1e-10 + dot(spec, jnp.asarray(mel_filterbank_matrix(cfg), dtype))
+    cepstra = dot(jnp.log(fb), jnp.asarray(dct_matrix(cfg), dtype))
     return cepstra
 
 

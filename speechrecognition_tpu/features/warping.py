@@ -23,7 +23,7 @@ Replicates the reference's warping machinery semantics:
     (rwth-asr-0.5/src/Signal/BayesClassification.cc): score each candidate
     α's feature stream under an acoustic model, pick the ML factor.
 
-TPU notes: warping only changes the static [n_bins, n_mel] filterbank
+Device notes: warping only changes the static [n_bins, n_mel] filterbank
 matrix — the batched front-end path stays three GEMMs; per-speaker VTLN is
 a gather over a stacked [n_alphas, n_bins, n_mel] tensor, so a whole
 corpus with mixed warping factors still runs as one batched einsum.

@@ -1,6 +1,6 @@
 """Weighted finite-state automata mini-library.
 
-TPU-native counterpart of the reference's Fsa module
+JAX counterpart of the reference's Fsa module
 (rwth-asr-0.5/src/Fsa/: Automaton.hh, Compose.cc, Determinize.cc,
 Minimize.cc, RemoveEpsilons.cc, Best.cc, Prune.cc, Draw.cc, Static.cc,
 Semiring.hh).  The reference builds lazy on-demand automata in C++; this

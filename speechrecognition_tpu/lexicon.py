@@ -1,6 +1,6 @@
 """Word lexicon and HMM state automata.
 
-TPU-first representation: instead of the reference's per-word
+Dense representation: instead of the reference's per-word
 ``MarkovAutomaton`` objects (src/sietill/MarkovAutomaton.hpp,
 Lexicon.cpp:70-85) we build *static padded index tables* so the decoder and
 aligner can address every (word, position) pair as a dense tensor slot.
@@ -96,7 +96,7 @@ class Lexicon:
     def get_silence_automaton(self) -> MarkovAutomaton:
         return self.automata[self.silence]
 
-    # -- dense tables for the TPU decoder -----------------------------------
+    # -- dense tables for the device decoder -----------------------------------
 
     @property
     def max_positions(self) -> int:

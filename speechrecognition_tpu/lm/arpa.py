@@ -1,6 +1,6 @@
 """ARPA back-off n-gram language model reader and scorer.
 
-TPU-native counterpart of the Sprint ARPA reader
+JAX counterpart of the Sprint ARPA reader
 (rwth-asr-0.5/src/Lm/ArpaLm.cc, BackingOff.cc): parses the \\data\\ /
 \\N-grams: sections (log10 probabilities + back-off weights) and scores
 with standard Katz back-off:

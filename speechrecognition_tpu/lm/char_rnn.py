@@ -6,12 +6,12 @@ with softmax output, cross-entropy loss, gradient clipping to [-5, 5],
 Adagrad updates (lr 0.1), exponentially smoothed loss reporting and
 temperature-1 sampling.
 
-TPU-native design: the per-character python loop becomes a single
+Device design: the per-character python loop becomes a single
 ``lax.scan`` over the sequence; loss and gradients come from ``jax.grad``
 of the scanned forward (identical math to the reference's hand-written
 backprop — verified against a direct numpy port in tests). Batched
-training stacks sequences on a leading axis so the two GEMMs per step run
-on the MXU; parameters live in a pytree and the update is one fused
+training stacks sequences on a leading axis so the two GEMMs per step are
+batched; parameters live in a pytree and the update is one fused
 ``tree_map``.
 """
 

@@ -15,7 +15,7 @@ the number of inserted positions, not the number of full n-grams.
 
 Scoring is dict-based on the host — the trie is built once and the
 decoder consumes per-word score *tables* (see ``score_matrix``), which is
-the TPU-friendly contract: the LM lives on the host, dense score tables
+the device-friendly contract: the LM lives on the host, dense score tables
 live on the device.
 """
 

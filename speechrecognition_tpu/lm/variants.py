@@ -1,7 +1,7 @@
 """Additional Sprint language-model variants: zerogram, FSA-grammar LM,
 and class LM.
 
-TPU-native counterparts of rwth-asr-0.5/src/Lm/Zerogram.cc, Lm/FsaLm.cc
+JAX counterparts of rwth-asr-0.5/src/Lm/Zerogram.cc, Lm/FsaLm.cc
 and Lm/ClassLm.cc.  All scores are −ln p (framework convention); every
 variant exposes the same dense ``score_table(histories, words)`` surface
 the decoders consume (see search/ngram_decoder.py), so grammar decoding

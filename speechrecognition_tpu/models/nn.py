@@ -1,4 +1,4 @@
-"""Hybrid MLP acoustic scorer (the reference's NN stack, TPU-style).
+"""Hybrid MLP acoustic scorer (the reference's NN stack, batched).
 
 Replicates the semantics of src/sietill/{NetworkLayer,FeedForwardLayer,
 OutputLayer,NeuralNetwork}.{hpp,cpp}: named layers built from the config's
@@ -6,7 +6,7 @@ OutputLayer,NeuralNetwork}.{hpp,cpp}: named layers built from the config's
 (sigmoid/tanh/relu/none) and a log-space-softmax output layer. The
 reference runs one BLAS sgemm per timestep under OpenMP
 (FeedForwardLayer.cpp:96-167); here the whole (T·B, D) batch is a single
-MXU matmul per layer.
+matmul per layer.
 
 Scoring (NeuralNetwork.cpp:184-199): score(t, s) = −log softmax(t, s)
 + κ·log prior(s), with the prior loaded from a text file of state
@@ -125,7 +125,9 @@ class MLP:
         log_probs = None
         for s in self.specs:
             inp = jnp.concatenate([acts[i] for i in s.inputs], axis=-1)
-            z = inp @ params[s.name]["W"].T + params[s.name]["b"]
+            # HIGHEST: f32 as in the reference MLP, never TF32
+            z = jnp.dot(inp, params[s.name]["W"].T,
+                        precision=jax.lax.Precision.HIGHEST) + params[s.name]["b"]
             if s.kind == "output":
                 log_probs = jax.nn.log_softmax(z, axis=-1)
                 acts[s.name] = jnp.exp(log_probs)

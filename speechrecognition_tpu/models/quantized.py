@@ -1,4 +1,4 @@
-"""Int8 quantized batch scoring + density preselection, TPU-native.
+"""Int8 quantized batch scoring + density preselection.
 
 Counterpart of the reference's SIMD batch feature scorers
 (rwth-asr-0.5/src/Mm/BatchFeatureScorer.hh:199-333 —
@@ -27,9 +27,9 @@ Reference semantics kept exactly:
     clusters=256, select-clusters=32, backoff-score=40000,
     DensityClustering.cc:18-29).
 
-The TPU mapping: the reference's u8 values carry a +128 offset that
+The device mapping: the reference's u8 values carry a +128 offset that
 cancels in the |qx − qm| difference, so int8 (offset-free) tables give
-the SAME integer distances while hitting the MXU's s8×s8→s32 path:
+the SAME integer distances through an s8×s8→s32 integer matmul:
 
     d[N,J] = Σqx² [N,1] − 2·(qx · qmᵀ)[N,J] + Σqm² [1,J]
 
@@ -38,7 +38,7 @@ integer matmul + top-k; unselected densities are masked to the backoff
 AFTER the dense matmul — same scores as the reference's skip-loop, in
 the form the hardware wants (dense compute + mask beats gather at these
 codebook sizes; the win the reference gets from *skipping* we get from
-int8 doubling MXU throughput and halving HBM traffic).
+int8 matmul throughput and halved memory traffic).
 """
 
 from __future__ import annotations
@@ -227,7 +227,7 @@ def quantize_features(pack: QuantPack, feats: jnp.ndarray) -> jnp.ndarray:
 
 def quantized_distances(pack: QuantPack, qx: jnp.ndarray) -> jnp.ndarray:
     """int8 [N, dim] → int32 [N, J] exact integer distances
-    Σ (qx − qm)² via one s8×s8→s32 MXU matmul."""
+    Σ (qx − qm)² via one s8×s8→s32 matmul."""
     xi = qx.astype(jnp.int32)
     xx = (xi * xi).sum(axis=1, dtype=jnp.int32)                  # [N]
     cross = jax.lax.dot_general(

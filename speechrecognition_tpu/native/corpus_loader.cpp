@@ -1,6 +1,6 @@
 // Native corpus loader: parallel .mm2 reading + feature post-processing.
 //
-// TPU-native counterpart of the reference's corpus load path
+// Native counterpart of the reference's corpus load path
 // (src/sietill/Corpus.cpp:89-111 + SignalAnalysis.cpp:379-399): reads each
 // segment's raw 12-dim float32 cepstra, appends Δ / ΔΔ-energy features,
 // applies corpus mean/σ normalization (with the reference's two-step

@@ -1,1 +1,1 @@
-from .mahalanobis import mahalanobis_scores, pack_to_mahalanobis  # noqa: F401
+"""Numeric building blocks: double-float (two-f32) arithmetic."""

@@ -1,7 +1,7 @@
 """Search-derived word lattices with predecessor contexts and exact arc
 scores.
 
-TPU-native counterpart of the reference's real lattice generation
+JAX counterpart of the reference's real lattice generation
 (Lattice/Lattice.hh word-boundary lattices; Flf/FlfCore/Lattice.hh): the
 WCTS scan retains, for every frame t, predecessor word c, and word w, the
 best hypothesis of w ending at t whose predecessor word ended at the

@@ -1,7 +1,7 @@
 """Lattice framework tier: HTK SLF IO, lattice archives, confusion
 networks, system combination.
 
-TPU-native counterpart of the reference's lattice tooling:
+JAX counterpart of the reference's lattice tooling:
   * HTK SLF read/write — Lattice/HtkReader.cc / HtkWriter.cc
   * lattice archives    — Lattice/Archive.cc (ArchiveReader/Writer)
   * confusion networks  — Flf/CenterFrameConfusionNetworkBuilder.cc

@@ -1,6 +1,6 @@
 """Flf non-word-closure filter family.
 
-TPU-framework counterpart of the reference's Flf/NonWordFilter.cc
+JAX counterpart of the reference's Flf/NonWordFilter.cc
 (NodeRegistration.hh entries `non-word-closure-filter`,
 `non-word-closure-weak-determinization-filter`,
 `non-word-closure-strong-determinization-filter`,

@@ -1,7 +1,7 @@
 """Flf confusion-network IO, pruning, combination, features and oracle
 alignment.
 
-TPU-framework counterpart of the reference's
+JAX counterpart of the reference's
 Flf/ConfusionNetworkIo.cc + TimeframeConfusionNetworkIo.cc (CN/fCN
 archives), Flf/ConfusionNetwork.cc (prune-CN/prune-fCN, oracle
 alignment, CN features), Flf/TimeframeConfusionNetworkCombination.cc

@@ -1,6 +1,6 @@
 """Flf composition / rational-operation nodes over word lattices.
 
-TPU-framework counterpart of the reference's Flf/Compose.cc +
+JAX counterpart of the reference's Flf/Compose.cc +
 Flf/RemoveEpsilons.cc + Flf/Fit.cc node implementations
 (rwth-asr-0.5/src/Flf/NodeRegistration.hh entries `compose`,
 `compose-matching`, `compose-sequencing`, `intersection`, `difference`,

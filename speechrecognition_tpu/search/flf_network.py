@@ -1,7 +1,7 @@
 """Flf lattice-processor NETWORK: a config-driven dataflow of lattice
 operations, plus the posterior/MBR algorithms the nodes need.
 
-TPU-native counterpart of the reference's Flf tool
+JAX counterpart of the reference's Flf tool
 (rwth-asr-0.5/src/Flf/Network.cc + NodeFactory.cc + NodeRegistration.hh):
 the Flf binary parses `[network]` / `[network.<node>]` Sprint-config
 blocks into a DAG of typed nodes connected by `links = [port->]name[:port]`

@@ -1,6 +1,6 @@
 """Flf score-dimension (semiring-key) manipulation.
 
-TPU-framework counterpart of the reference's Flf/Rescore.cc +
+JAX counterpart of the reference's Flf/Rescore.cc +
 Flf/ChangeSemiring / Flf/Project (NodeRegistration.hh entries `append`,
 `add`, `multiply`, `exp`, `log`, `extend-by-penalty`,
 `extend-by-pronunciation-score`, `reduce`, `change-semiring`,

@@ -1,6 +1,6 @@
 """Histogram pruning: cap the number of active hypotheses per frame.
 
-TPU-native realization of the reference's score histogram
+JAX realization of the reference's score histogram
 (rwth-asr-0.5/src/Search/Histogram.hh:26-77) and its use for acoustic /
 word-end histogram pruning in the production decoder
 (Search/WordConditionedTreeSearch.cc:1256-1287): after beam (threshold)

@@ -1,6 +1,6 @@
 """Word lattices from the word-conditioned decoder.
 
-TPU-native counterpart of the reference's lattice machinery
+JAX counterpart of the reference's lattice machinery
 (rwth-asr-0.5/src/Lattice/ + Flf best/posterior/n-best): the bigram
 decoder's per-frame word-end books [T, B, W] already contain every word
 hypothesis that survived pruning, with its best boundary frame. This

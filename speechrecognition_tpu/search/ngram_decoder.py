@@ -1,6 +1,6 @@
 """Word-conditioned time-synchronous decoder with bigram LM recombination.
 
-TPU-native counterpart of the reference lab decoder
+JAX counterpart of the reference lab decoder
 (rwth-asr-0.5/src/Teaching/LinearSearch.cc:211-436): a linear word lexicon
 where word entries are conditioned on the predecessor word through bigram
 scores, with exact recombination at word boundaries.

@@ -10,7 +10,7 @@ processFeature → feed; Search/Search.hh:33-72 — restart/feed/
 getCurrentBestSentence). The SpeechRecognizer tool exposes this as its
 offline/online modes (Tools/SpeechRecognizer/SpeechRecognizer.cc:30-66).
 
-TPU-native shape: per-frame device dispatches would be latency-bound, so
+Device shape: per-frame device dispatches would be latency-bound, so
 the stream is committed in DECODE_CHUNK-frame slices of the SAME two
 compiled programs the offline decoder uses (per-chunk acoustic scoring +
 the chunked word-loop scan with carried lattice state,

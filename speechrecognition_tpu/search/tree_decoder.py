@@ -1,6 +1,6 @@
 """Lexical prefix-tree time-synchronous decoder (tree search).
 
-TPU-native counterpart of the reference's tree decoders
+JAX counterpart of the reference's tree decoders
 (rwth-asr-0.5/src/Search/WordConditionedTreeSearch.cc, StateTree.cc and
 the Teaching variant): the lexicon's word automata are merged into a
 prefix tree over (tied-)state sequences, flattened into dense index

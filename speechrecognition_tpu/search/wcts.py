@@ -1,6 +1,6 @@
 """Word-conditioned tree search with bigram LM contexts and LM lookahead.
 
-TPU-native counterpart of the reference's production decoder
+JAX counterpart of the reference's production decoder
 (rwth-asr-0.5/src/Search/WordConditionedTreeSearch.cc + StateTree.cc +
 LanguageModelLookahead.cc, and the Teaching skeleton
 Teaching/WordConditionedTreeSearch.cc:262-345,590-810): one copy of the

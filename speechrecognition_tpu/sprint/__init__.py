@@ -1,4 +1,4 @@
-"""Sprint (rwth-asr-0.5) compatible infrastructure, re-designed TPU-first.
+"""Sprint (rwth-asr-0.5) compatible infrastructure, re-designed as dense tensor programs.
 
 This subpackage covers the LVCSR toolkit tier of the reference: the
 hierarchical config system, Bliss XML corpora/lexica, Sprint file archives

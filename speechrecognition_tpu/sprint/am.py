@@ -1,6 +1,6 @@
 """Acoustic-model assembly: allophones, HMM topology, CART tying, TDPs.
 
-TPU-native counterpart of rwth-asr's ClassicAcousticModel
+JAX counterpart of rwth-asr's ClassicAcousticModel
 (Am/ClassicAcousticModel.cc): maps a Bliss lexicon + CART decision tree to
 
   * per-word HMM automata over *tied* mixture indices (states-per-phone ×

@@ -1,6 +1,6 @@
 """CART decision-tree training for phonetic state tying.
 
-TPU-native counterpart of the reference's trainer stack
+JAX counterpart of the reference's trainer stack
 (rwth-asr-0.5/src/Cart/DecisionTreeTrainer.cc:324-700 greedy training
 loop, Speech/DecisionTreeTrainer.cc:109-201 Gaussian log-likelihood gain
 scorer, Speech/DecisionTreeTrainer.cc FeatureAccumulator example
@@ -12,7 +12,7 @@ candidate splits are scored in one batched pass
     left_stats[Q, D]  = (ans * member)[Q, E] @ sums[E, D]      (matmul)
     ll[Q]             = 0.5 n (D + D log 2pi + sum_d log var_d)
 
-which is the MXU-shaped formulation of the reference's per-question
+which is the matmul-shaped formulation of the reference's per-question
 example partition loop (DecisionTreeTrainer.cc:398-447).  Example counts
 here are tiny (thousands), so the host runs it instantly in f64; the
 formulation scales to device execution unchanged.

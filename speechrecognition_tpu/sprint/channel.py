@@ -16,7 +16,7 @@ The Application harness reproduces Core::Application::run: parse
 ``--config=FILE`` plus ``--KEY=VALUE`` command-line overrides into the
 wildcard SprintConfig, construct the root component, run ``main``, and
 report collected error counts / wall time through the channel system —
-the TPU framework's CLIs (tools/sprint_tools.py) are thin wrappers that
+this framework's CLIs (tools/sprint_tools.py) are thin wrappers that
 gain structured XML logging by running inside it.
 """
 

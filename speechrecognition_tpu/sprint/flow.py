@@ -1,6 +1,6 @@
 """Flow dataflow networks: XML parsing + execution.
 
-TPU-native counterpart of the reference's Flow engine
+JAX counterpart of the reference's Flow engine
 (rwth-asr-0.5/src/Flow/: Network.cc, NetworkParser.cc, Node.hh,
 Link.hh; filters from Signal/ and Flow/).  The reference pulls typed
 packets frame-by-frame through a node graph; here a network is parsed

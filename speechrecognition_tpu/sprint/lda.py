@@ -70,7 +70,7 @@ class ScatterMatricesEstimator:
     (Signal/ScatterEstimator.cc:86-304).
 
     Accumulates per-class first moments and the global second moment; the
-    TPU-shaped formulation replaces the reference's per-frame lower-triangle
+    batched formulation replaces the reference's per-frame lower-triangle
     loop with batched reductions
 
         vectorSquareSum = X^T X                     (one [D,T]x[T,D] matmul)

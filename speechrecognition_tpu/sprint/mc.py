@@ -1,6 +1,6 @@
 """Scaled model combination (Mc tier).
 
-TPU-native counterpart of rwth-asr's Mc module + Speech::ModelCombination
+JAX counterpart of rwth-asr's Mc module + Speech::ModelCombination
 (Mc/Component.hh:26-80, Speech/ModelCombination.cc:27-106): every model in
 a combination carries an *own* scale read from its config selection
 (`<component>.scale`), and the effective scale of a component is the

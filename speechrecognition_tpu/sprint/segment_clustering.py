@@ -18,7 +18,7 @@ and stops via the BIC criterion: merge while
 (SegmentClustering.cc:905). Typical downstream use: per-cluster CMVN /
 VTLN warping factors (features/warping.py).
 
-TPU notes: the hot part — candidate-pair GLR scores — is evaluated as one
+Device notes: the hot part — candidate-pair GLR scores — is evaluated as one
 batched ``slogdet`` over a [P, d, d] stack of merged scatter matrices, so
 each agglomeration round is a single vectorized call rather than a python
 pair loop; cluster bookkeeping (argmin, merge) is tiny host control flow.

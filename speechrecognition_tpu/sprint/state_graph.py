@@ -1,6 +1,6 @@
 """Allophone-state graph construction: orthography → alignment automata/FSAs.
 
-TPU-native counterpart of Speech/AllophoneStateGraphBuilder.cc and
+JAX counterpart of Speech/AllophoneStateGraphBuilder.cc and
 Am/ClassicTransducerBuilder.cc: maps a transcription through the Bliss
 lexicon's pronunciations and the CART tying into
 
@@ -14,7 +14,7 @@ lexicon's pronunciations and the CART tying into
     results.
 
 Where Sprint builds an on-demand Fsa and composes lemma/phoneme/allophone
-transducers lazily, the TPU design flattens everything to dense tables once
+transducers lazily, this design flattens everything to dense tables once
 per transcription; the search/alignment machinery then runs as batched
 scans with no pointer chasing.
 """

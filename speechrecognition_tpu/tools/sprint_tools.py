@@ -1,6 +1,6 @@
 """Sprint-style command-line tools.
 
-TPU-native counterparts of the reference's Tools/ binaries
+JAX counterparts of the reference's Tools/ binaries
 (rwth-asr-0.5/src/Tools/):
   * archiver          — Tools/Archiver/Archiver.cc (list/extract/show
                         file archives and feature caches)

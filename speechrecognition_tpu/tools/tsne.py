@@ -1,6 +1,6 @@
 """t-SNE for NN-activation visualization, as a jitted gradient loop.
 
-TPU-native counterpart of the reference's vendored van-der-Maaten t-SNE
+JAX counterpart of the reference's vendored van-der-Maaten t-SNE
 (src/tSNE-plotting/tsne.py, applied to activations dumped by the
 plot-activations action, SieTill.cpp:152-179): exact O(N²) t-SNE where
 the pairwise affinities and gradients are dense matmul/elementwise ops,

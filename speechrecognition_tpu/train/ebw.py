@@ -1,6 +1,6 @@
 """Discriminative GMM training: lattice-based MMI with EBW updates.
 
-TPU-native counterpart of the reference's discriminative tier:
+JAX counterpart of the reference's discriminative tier:
   * EBW re-estimation        — Mm/EbwDiscriminativeMixtureSetEstimator.cc
                                (extended Baum-Welch with per-density D)
   * I-smoothing              — Mm/ISmoothingMixtureSetEstimator.cc

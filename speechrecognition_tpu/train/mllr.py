@@ -1,6 +1,6 @@
 """MLLR speaker adaptation (mean transforms over a regression tree).
 
-TPU-native counterpart of the reference's adaptation stack
+JAX counterpart of the reference's adaptation stack
 (rwth-asr-0.5/src/Mm/MllrAdaptation.cc + Am/AdaptationTree.cc):
 
   * FullAdaptorViterbiEstimator (:794-930): per regression-tree node,
@@ -15,7 +15,7 @@ TPU-native counterpart of the reference's adaptation stack
     mu' = mu + shift (:66-88).
 
 The per-frame statistics are batched: Viterbi density selection for all
-frames is one [N, S, D] scoring pass (the same MXU matmul the decoder
+frames is one [N, S, D] scoring pass (the same matmul the decoder
 uses) + a masked argmin, and per-leaf Z/G are leaf-masked matmuls
 x^T @ [1, mu] — no per-frame Python.  Accumulators are plain summed
 tensors, so cross-shard combination under a mesh is a psum (the

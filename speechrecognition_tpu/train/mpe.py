@@ -1,7 +1,7 @@
 """MPE-style discriminative training: approximate-accuracy lattices
 feeding sign-split EBW statistics.
 
-TPU-native counterpart of the reference's accuracy-FSA machinery:
+JAX counterpart of the reference's accuracy-FSA machinery:
   * approximate word accuracy per lattice arc —
     Lattice/Accuracy.cc:351-369 (ApproximateAccuracyAutomaton::accuracy):
     for a hypothesis arc h and the reference intervals r that overlap it,

@@ -82,7 +82,7 @@ def test_unpruned_decoder_agrees(recognizer, demo_corpus, lexicon, fixtures_dir,
 def test_df32_transcript_parity(lexicon, fixtures_dir, demo_corpus,
                                 demo_recognition):
     """The double-float (two-f32) decode path must reproduce the oracle
-    transcripts exactly — it is the TPU-fast stand-in for the f64 path
+    transcripts exactly — it is the f32-only stand-in for the f64 path
     (Mixtures.cpp:590-628 double accumulation)."""
     raw = read_mixture_set(str(fixtures_dir / "iter-2.mix"), 25)
     model = MixtureModel.from_raw(raw, VarianceModel.MIXTURE_POOLING,

@@ -1,5 +1,8 @@
 """End-to-end EM training parity on the demo corpus vs oracle fixtures."""
 
+import json
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -9,15 +12,12 @@ from speechrecognition_tpu.tdp import TdpModel
 from speechrecognition_tpu.train.em import Trainer, TrainerConfig
 
 # oracle training config: tdp 20/0/20, pruning 120, 2 splits, 3 estimates
-TDP = dict(loop=20.0, forward=0.0, skip=20.0)
-ORACLE_AM_SCORES = {
-    (-1, 0, 0): 32.9885,
-    (0, 0, 0): 32.5804,
-    (1, -1, 0): 32.1673,
-    (1, 0, 0): 31.9418, (1, 0, 1): 31.9074, (1, 0, 2): 31.8869,
-    (2, -1, 0): 31.4152,
-    (2, 0, 0): 31.3187, (2, 0, 1): 31.2697, (2, 0, 2): 31.2383,
-}
+with open(pathlib.Path(__file__).parent / "fixtures"
+          / "em_demo_am_scores.json") as _f:
+    _ORACLE = json.load(_f)
+TDP = _ORACLE["tdp"]
+ORACLE_AM_SCORES = {(int(i), int(j), int(k)): s
+                    for i, j, k, s in _ORACLE["trajectory"]}
 
 
 @pytest.fixture(scope="module")

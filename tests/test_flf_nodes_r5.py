@@ -588,9 +588,7 @@ def test_recognizer_node_produces_lattice(tmp_path, fixtures_dir):
     """In-network recognizer: sietill demo system → lattice whose best
     path matches the standalone decoder's golden transcript."""
     import json
-    import pathlib
 
-    reference_dir = pathlib.Path("/root/reference")
     with open(fixtures_dir / "demo_recognition.json") as f:
         golden = json.load(f)
     cfg = tmp_path / "net.config"
@@ -598,7 +596,7 @@ def test_recognizer_node_produces_lattice(tmp_path, fixtures_dir):
 [network.rec]
 type = recognizer
 mixture-file = {fixtures_dir / 'iter-2.mix'}
-corpus = {reference_dir / 'src/sietill/corpora/demo_corpus.json'}
+corpus = {fixtures_dir / 'demo_corpus.json'}
 feature-path = {fixtures_dir / 'demo_features'}/
 normalization = {fixtures_dir / 'normalization-demo.bin'}
 word-penalty = {golden['config']['word_penalty']}
@@ -616,9 +614,8 @@ type = best
                            silence=lexicon.silence_idx)
     seg0 = golden["utts"][0]
     from speechrecognition_tpu.corpus import CorpusDescription
-    desc = CorpusDescription.read(
-        str(reference_dir / "src/sietill/corpora/demo_corpus.json"),
-        lexicon)
+    desc = CorpusDescription.read(str(fixtures_dir / "demo_corpus.json"),
+                                  lexicon)
     name = desc.segments[seg0["idx"]].name
     r = net.run([name], out=out)[name]
     hyp = [w for w in r["best"] if w != lexicon.silence_idx]

@@ -3,7 +3,7 @@ corpus stripes, gather stats with a cross-process collective, and the
 combined WER equals the single-process golden numbers exactly.
 
 This is the no-hardware validation of the jax.distributed path
-(BASELINE.md's N≥2-host requirement): same code path a TPU pod uses,
+(BASELINE.md's N≥2-host requirement): same code path a multi-host run uses,
 with the coordinator/stripe/allgather machinery exercised for real.
 """
 

@@ -13,7 +13,7 @@ from speechrecognition_tpu.native.loader import load_corpus_native, native_avail
 @pytest.mark.skipif(not native_available(), reason="no C++ toolchain")
 def test_native_matches_python(lexicon, fixtures_dir):
     desc = CorpusDescription.read(
-        "/root/reference/src/sietill/corpora/demo_corpus.json", lexicon)
+        str(fixtures_dir / "demo_corpus.json"), lexicon)
     cfg = SignalAnalysisConfig()
     norm = str(fixtures_dir / "normalization-demo.bin")
     py = Corpus.read(desc, str(fixtures_dir / "demo_features") + "/", cfg,
@@ -27,7 +27,7 @@ def test_native_matches_python(lexicon, fixtures_dir):
 @pytest.mark.skipif(not native_available(), reason="no C++ toolchain")
 def test_native_no_normalization(lexicon, fixtures_dir):
     desc = CorpusDescription.read(
-        "/root/reference/src/sietill/corpora/demo_corpus.json", lexicon)
+        str(fixtures_dir / "demo_corpus.json"), lexicon)
     cfg = SignalAnalysisConfig()
     py = Corpus.read(desc, str(fixtures_dir / "demo_features") + "/", cfg,
                      use_native=False)

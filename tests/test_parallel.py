@@ -66,8 +66,10 @@ def test_sharded_accumulate_matches_single(pack, demo_corpus):
 
 def test_dryrun_multichip_entrypoints():
     import importlib.util
+    import pathlib
     spec = importlib.util.spec_from_file_location(
-        "graft_entry", "/root/repo/__graft_entry__.py")
+        "graft_entry",
+        pathlib.Path(__file__).resolve().parents[1] / "__graft_entry__.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     fn, args = mod.entry()

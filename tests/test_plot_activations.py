@@ -23,7 +23,7 @@ def test_plot_activations_action(tmp_path, fixtures_dir):
     model_dir = str(tmp_path / "models") + "/"
     acts_dir = str(tmp_path / "activations")
     cfg = {
-        "corpus": "/root/reference/src/sietill/corpora/demo_corpus.json",
+        "corpus": str(fixtures_dir / "demo_corpus.json"),
         "feature-path": str(fixtures_dir / "demo_features") + "/",
         "normalization-path": str(fixtures_dir / "normalization-demo.bin"),
         "target-file": str(fixtures_dir / "demo_alignments"

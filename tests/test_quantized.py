@@ -78,7 +78,7 @@ def test_constants_formula(an4_model, qpack):
 
 
 def test_integer_distances_bit_exact(qpack, sample_features):
-    """The MXU s8×s8→s32 expansion equals the reference's
+    """The s8×s8→s32 matmul expansion equals the reference's
     Σ (qx − qm)² integer distance exactly."""
     qx = np.asarray(quantize_features(qpack, jnp.asarray(sample_features)))
     d_dev = np.asarray(quantized_distances(qpack, jnp.asarray(qx)))

@@ -61,7 +61,7 @@ def test_cli_recognize_smoke(fixtures_dir, tmp_path):
     config = {
         "action": "recognize",
         "pooling": "mixture", "max-approx": True,
-        "corpus": "/root/reference/src/sietill/corpora/demo_corpus.json",
+        "corpus": str(fixtures_dir / "demo_corpus.json"),
         "feature-path": str(fixtures_dir / "demo_features") + "/",
         "normalization-path": str(fixtures_dir / "normalization-demo.bin"),
         "tdp-loop": 3.0, "tdp-forward": 0.0, "tdp-skip": 30.0,
@@ -75,10 +75,10 @@ def test_cli_recognize_smoke(fixtures_dir, tmp_path):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [sys.executable, "-c",
-         "import jax; jax.config.update('jax_platforms', 'cpu');"
          "import sys; from speechrecognition_tpu.cli import main;"
          f"sys.exit(main(['{cfg_path}']))"],
-        capture_output=True, text=True, env=env, cwd="/root/repo", timeout=600)
+        capture_output=True, text=True, env=env,
+        cwd=str(fixtures_dir.parents[1]), timeout=600)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "WER: 19.587629%" in proc.stderr
     assert "SER: 20.000000%" in proc.stderr

@@ -4,7 +4,7 @@ Decodes all 13117 test utterances with the committed bench model and
 compares 1-best transcripts against the oracle fixture
 (tests/fixtures/test_recognition_full.json.gz).
 
-Usage: python tools/full_parity.py [--method pallas|mxu] [--dtype f32|f64]
+Usage: python tools/full_parity.py [--dtype f32|f64|df32]
 """
 
 import argparse
@@ -22,7 +22,6 @@ sys.path.insert(0, REPO)
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--method", default="mxu", choices=["pallas", "mxu"])
     ap.add_argument("--dtype", default="f32", choices=["f32", "f64", "df32"])
     ap.add_argument("--batch-size", type=int, default=512)
     ap.add_argument("--model", default="",
@@ -31,10 +30,8 @@ def main():
                     help="comma-separated T buckets (fewer = fewer compiles)")
     args = ap.parse_args()
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from speechrecognition_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     from speechrecognition_tpu.config import Configuration
     from speechrecognition_tpu.corpus import Corpus, CorpusDescription
@@ -63,7 +60,7 @@ def main():
         pack = model.pack_df()
     else:
         dtype = jnp.float64 if args.dtype == "f64" else jnp.float32
-        pack = model.pack(dtype=dtype, method=args.method)
+        pack = model.pack(dtype=dtype)
     tdp = TdpModel(silence_state=lex.silence_state, loop=cfgm["tdp"][0],
                    forward=cfgm["tdp"][1], skip=cfgm["tdp"][2])
     config = Configuration({"am-threshold": cfgm["am_threshold"],
@@ -81,7 +78,7 @@ def main():
     for utt in golden["utts"]:
         if res["hyps"][utt["idx"]] != utt["hyp"]:
             mism.append(utt["idx"])
-    print(f"method={args.method} dtype={args.dtype}")
+    print(f"dtype={args.dtype}")
     print(f"transcript mismatches: {len(mism)}/13117 "
           f"({100.0 * len(mism) / 13117:.4f}%)")
     if mism[:10]:

@@ -1,6 +1,6 @@
 """WER sweep driver: pruning-threshold and word-penalty/TDP tuning curves.
 
-Reproduces the reference's tuning workflows as one batched-TPU driver:
+Reproduces the reference's tuning workflows as one batched device driver:
 
   * threshold mode — WER vs am-threshold, the wer-plotting data format
     ``<threshold> <wer>`` (src/wer-plotting/gnuplot/test/time.data:1-6);
@@ -56,9 +56,8 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
+    from speechrecognition_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     from speechrecognition_tpu.config import Configuration
     from speechrecognition_tpu.corpus import Corpus, CorpusDescription
